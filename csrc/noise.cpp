@@ -4,9 +4,9 @@
 // Role parity: the reference ships a native SIMD noise library
 // (Assets/Scripts/Utility/FastNoise Unity/Plugins, FastNoiseSIMD) for
 // host-side terrain sampling; this is its equivalent for the streaming
-// builder's hot path: millions of density samples per chunk build, far from
-// the TPU compute path. Plain loops written for compiler auto-vectorization
-// (-O3 -march=native) + std::thread sharding over the batch.
+// builder's hot path: millions of density samples per chunk build, on the
+// host. Plain loops written for compiler auto-vectorization (-O3) +
+// std::thread sharding over the batch.
 
 #include <cstdint>
 #include <cmath>

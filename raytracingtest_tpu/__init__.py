@@ -1,7 +1,7 @@
-"""raytracingtest_tpu — a TPU-native differentiable sparse-voxel-octree renderer.
+"""raytracingtest_tpu — a differentiable sparse-voxel-octree renderer in JAX.
 
-A from-scratch JAX/Pallas/pjit framework with the capabilities of the reference
-Unity/C#/HLSL project `epitaque/RaytracingTest` (see /root/repo/SURVEY.md):
+A from-scratch JAX framework with the capabilities of the reference
+Unity/C#/HLSL project `epitaque/RaytracingTest` (see SURVEY.md):
 
 - SVO construction from implicit signed-density samplers
   (reference: Assets/Scripts/SVO/CompactSVO/NaiveCreator.cs)
@@ -13,13 +13,14 @@ Unity/C#/HLSL project `epitaque/RaytracingTest` (see /root/repo/SURVEY.md):
    Assets/Scripts/SVO/GPU/RaytracingMaster.cs)
 - Slice-based incremental construction + clipmap streaming
   (reference: Assets/Scripts/SliceBasedSVO/, Assets/Scripts/Clipmap/)
-- New, TPU-mandated capabilities with no reference counterpart:
-  differentiability (custom VJP to per-voxel parameters) and multi-chip
-  sharding via jax.sharding / shard_map.
+- New capabilities with no reference counterpart: differentiability
+  (custom VJP to per-voxel parameters) and multi-device sharding via
+  jax.sharding / shard_map.
 
-Architecture is TPU-first: pointer-free breadth-first level arrays instead of
-pointer trees, vectorized lane-parallel traversal instead of divergent threads,
-functional pytrees instead of MonoBehaviours.
+Architecture: pointer-free breadth-first level arrays instead of pointer
+trees, vectorized lane-parallel traversal instead of divergent threads,
+functional pytrees instead of MonoBehaviours. It runs on one NVIDIA GPU or
+several (python chip_smoke.py checks the main path on a card).
 """
 
 __version__ = "0.1.0"

@@ -7,11 +7,12 @@ Clipmap.cs:37-42) and Inspector-configured fields. Here:
   python -m raytracingtest_tpu.cli render --scene terrain --depth 8 \
       --width 512 --height 512 --out out.png
   python -m raytracingtest_tpu.cli fit --scene sphere --depth 6 \
-      --views 16 --steps 100 --out-dir /tmp/fit
+      --views 16 --steps 100 --out-dir rtt_fit
   python -m raytracingtest_tpu.cli info --scene sphere --depth 6
 
 Builds are cached on disk keyed by (scene, depth) — the rebuild-on-change
-ergonomics of OnValidate without rebuilding for unchanged configs.
+ergonomics of OnValidate without rebuilding for unchanged configs. `fit` and
+`fly` return a summary dict (losses, frame times) to in-process callers.
 """
 
 from __future__ import annotations
@@ -191,6 +192,7 @@ def cmd_fit(args):
                                           randomize=("albedo",))
     t0 = time.time()
     resid_total = 0
+    losses = []
     for step in range(args.steps):
         ccfg, target = views[step % len(views)]
         # the fastest applicable production path (tile > brick > plain);
@@ -198,6 +200,7 @@ def cmd_fit(args):
         params, opt_state, loss, resid = model.step_view(
             params, opt_state, ccfg, light, target)
         resid_total += int(resid)
+        losses.append(float(loss))
         if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {float(loss):.3e}  "
                   f"residual {int(resid)}  ({time.time()-t0:.1f}s)",
@@ -213,6 +216,7 @@ def cmd_fit(args):
                           params, opt_state, step=args.steps,
                           meta={"scene": args.scene, "depth": args.depth})
     print(f"saved {args.out_dir}/fit_state.npz", file=sys.stderr)
+    return {"losses": losses, "residual": resid_total, "albedo_error": err}
 
 
 def cmd_fly(args):
@@ -242,6 +246,7 @@ def cmd_fly(args):
     os.makedirs(args.out_dir, exist_ok=True)
     res = args.resolution
     stats_total = {"update_ms": 0.0, "render_ms": 0.0}
+    frame_ms = []
     acc = None
     sample = 0
     # fly path: a lateral sweep above the terrain looking ahead/down,
@@ -294,6 +299,7 @@ def cmd_fly(args):
 
         stats_total["update_ms"] += t_update * 1e3
         stats_total["render_ms"] += t_render * 1e3
+        frame_ms.append((t_update + t_render) * 1e3)
         print(f"frame {f:3d}  update {t_update*1e3:7.1f} ms "
               f"(+{st['added']}/-{st['evicted']} chunks, "
               f"{st['resident']} resident, "
@@ -303,6 +309,10 @@ def cmd_fly(args):
               file=sys.stderr)
         if px is not None:
             px = np.asarray(px).reshape(res, res, 3)
+            if not np.isfinite(px).all():
+                raise FloatingPointError(
+                    f"frame {f}: {int((~np.isfinite(px)).sum())} non-finite "
+                    "pixel values")
             if keep:
                 frames.append(px.copy())
             if args.save_frames:
@@ -314,6 +324,7 @@ def cmd_fly(args):
     print(f"avg/frame: update+sync+master {stats_total['update_ms']/n:.1f} "
           f"ms  render {stats_total['render_ms']/n:.1f} ms",
           file=sys.stderr)
+    return {"frame_ms": frame_ms}
 
 
 def cmd_info(args):
@@ -474,8 +485,11 @@ def cmd_probe(args):
 
 
 def main(argv=None):
+    from raytracingtest_tpu.utils.runtime import REPO_ROOT, setup_compile_cache
     p = argparse.ArgumentParser(prog="raytracingtest_tpu")
-    p.add_argument("--cache-dir", default="/tmp/rtt_cache")
+    p.add_argument("--cache-dir",
+                   default=os.path.join(REPO_ROOT, ".rtt_cache"),
+                   help="built SVOs, keyed by scene and depth")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("render", help="render a scene to PNG")
@@ -519,7 +533,7 @@ def main(argv=None):
     pf.add_argument("--steps", type=int, default=200)
     pf.add_argument("--lr", type=float, default=5e-2)
     pf.add_argument("--seed", type=int, default=0)
-    pf.add_argument("--out-dir", default="/tmp/rtt_fit")
+    pf.add_argument("--out-dir", default="rtt_fit")
     pf.set_defaults(fn=cmd_fit)
 
     pfly = sub.add_parser("fly", help="flythrough: streaming clipmap world "
@@ -534,7 +548,7 @@ def main(argv=None):
     pfly.add_argument("--arena-nodes", type=int, default=2_000_000)
     pfly.add_argument("--arena-leaves", type=int, default=4_000_000)
     pfly.add_argument("--save-frames", action="store_true")
-    pfly.add_argument("--out-dir", default="/tmp/rtt_fly")
+    pfly.add_argument("--out-dir", default="rtt_fly")
     pfly.add_argument("--path", choices=["tile", "brick"], default="tile",
                       help="tile = stitched pyramids through the "
                       "production tile walk (default); brick = the "
@@ -592,7 +606,8 @@ def main(argv=None):
     pp.set_defaults(fn=cmd_probe)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    setup_compile_cache()
+    return args.fn(args)
 
 
 if __name__ == "__main__":

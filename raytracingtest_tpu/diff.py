@@ -8,11 +8,13 @@ normal, density as float arrays — the compressed attachment codec in
 ops/codecs.py is kept for parity/IO only; the gradient path uses fp params).
 
 The backward pass routes millions of per-pixel cotangents to few voxel rows
-without atomics, inside a custom VJP (the deterministic, TPU-friendly
-scatter demanded by SURVEY.md §7.3.6): sort by leaf id + running column
-sums + one boundary gather at production row counts (_segment_reduce_cols),
-or seven rank-1 scatter-adds below SEG_MIN_ROWS (bit-identical to builtin
-autodiff's serialized scatter).
+inside a custom VJP (the segment-sum scatter of SURVEY.md §7.3.6): sort by
+leaf id + running column sums + one boundary gather at production row counts
+(_segment_reduce_cols, deterministic up to its one count histogram), or
+seven rank-1 scatter-adds below SEG_MIN_ROWS. On the GPU a scatter-add lowers
+to atomics, whose order of summation changes from run to run, so the rank-1
+result matches builtin autodiff only to f32 reassociation there (on the CPU
+the adds are serialized and it matches bit for bit).
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ def gather_voxel_params(albedo, normal, density, leaf_id):
     scatter is unaffected).
 
     The three parameter arrays are packed into one (n_leaves, 7) row so the
-    forward pass is ONE row gather instead of three (on this TPU gathers
-    cost ~3 ns/row regardless of row width up to ~68B — PROFILE.md; the
-    pack itself is a cheap streaming concat).
+    forward pass is ONE row gather instead of three (the pack itself is a
+    cheap streaming concat). The choice was made for the gather cost of the
+    original target and is unmeasured on the H100 (ROADMAP.md, Design 3).
     """
     packed = jnp.concatenate(
         [albedo, normal, density[:, None]], axis=1)
@@ -59,13 +61,13 @@ def _gather_fwd(albedo, normal, density, leaf_id):
 import os as _os
 
 # backward scatter scheme: "seg" (sort + cumsum + boundary gather, the
-# round-4 default) or "rank1" (seven rank-1 scatter-adds, the r3 scheme).
+# default) or "rank1" (seven rank-1 scatter-adds). Which is faster on the
+# H100, where scatter-adds are atomics, is unmeasured (ROADMAP.md, Design 3).
 SCATTER_MODE = _os.environ.get("RTT_SCATTER", "seg")
-# below this row count the rank-1 path runs regardless: it is bit-identical
-# to builtin autodiff's scatter (same serialized add order) and row counts
-# this small are scatter-cheap anyway. Overridable (RTT_SEG_MIN_ROWS) so
-# reproducibility comparisons across resolutions can pin one scheme
-# (ADVICE r04: the two paths differ by f32 reassociation, ~1e-4).
+# below this row count the rank-1 path runs regardless: row counts this small
+# are scatter-cheap, and on the CPU it adds in builtin autodiff's order.
+# Overridable (RTT_SEG_MIN_ROWS) so reproducibility comparisons across
+# resolutions can pin one scheme (the two differ by f32 reassociation, ~1e-4).
 SEG_MIN_ROWS = int(_os.environ.get("RTT_SEG_MIN_ROWS", 1 << 16))
 
 
@@ -74,27 +76,23 @@ def _segment_reduce_cols(leaf_id, cols, n_out):
 
     sort rows by leaf id -> running f32 column sums -> per-leaf boundaries
     from a count histogram -> ONE (n_out+1)-row gather of the running sums
-    -> adjacent difference. Measured 18.4 ms vs 48.8 ms for seven rank-1
-    scatter-adds at 1M rows x 7 cols into 1.1M leaves (scratch/r4_bwd2.py;
-    the scalar-scatter floor is ~7 ms/column and can't be batched).
-    Deterministic (stable sort, fixed reduction tree). Differs from the
-    serialized-scatter result only by f32 reassociation in the cumsum:
-    measured max abs deviation 9.5e-5 on 1M uniform(-.5,.5) rows whose
+    -> adjacent difference. It replaced seven rank-1 scatter-adds because
+    scatters were slow on the original target; on the H100 the two are
+    unmeasured (ROADMAP.md, Design 3). Deterministic (stable sort, fixed reduction
+    tree; the histogram counts integers, so atomics cannot change it).
+    Differs from a serialized scatter only by f32 reassociation in the
+    cumsum: max abs deviation ~1e-4 on 1M uniform(-.5,.5) rows whose
     running sums random-walk to ~2.5 — far inside training noise, and the
-    exact rank-1 path still runs below SEG_MIN_ROWS (so the tight
+    rank-1 path still runs below SEG_MIN_ROWS (so the tight
     oracle-equality gradcheck in tests/test_grad.py exercises it)."""
     n, C = cols.shape
     order = jnp.argsort(leaf_id)
     rows = jnp.take(cols, order, axis=0)
     S = jnp.cumsum(rows, axis=0)
     S = jnp.concatenate([jnp.zeros((1, C), cols.dtype), S], axis=0)
-    # per-leaf start offsets via a scalar scatter-add histogram. Measured
-    # alternatives at 1M rows -> 1.06M leaves (scratch/r6_seg.py, TPU v5
-    # lite): this histogram form 22.1 ms end-to-end; searchsorted
-    # method="sort" (one merged (n+n_out) sort, no scatter) 46.0 ms — the
-    # single-column megasort costs far more than the 9 ms scatter it
-    # replaces (wide multi-row sorts are near-free on this VPU, 1M-element
-    # single sorts are not).
+    # per-leaf start offsets via a scalar scatter-add histogram (the
+    # alternative, searchsorted over one merged sort, was slower on the
+    # original target; unmeasured on the H100)
     cnt = jnp.zeros(n_out, jnp.int32).at[leaf_id].add(1)
     start = jnp.concatenate(
         [jnp.zeros(1, jnp.int32), jnp.cumsum(cnt).astype(jnp.int32)])
@@ -109,10 +107,10 @@ def _gather_bwd(res, cot):
         cols7 = jnp.concatenate([g_alb, g_nrm, g_den[:, None]], axis=1)
         out = _segment_reduce_cols(leaf_id, cols7, n_leaves)
         return out[:, 0:3], out[:, 3:6], out[:, 6], None
-    # seven RANK-1 scatter-adds: XLA:TPU lowers a scalar scatter ~10x
-    # faster per element than a (N,7)-row scatter (~9 vs ~90 ns/row,
-    # PROFILE.md), scatter-add is deterministic on TPU (serialized, no
-    # atomics), and the add order matches builtin autodiff bit-for-bit
+    # seven RANK-1 scatter-adds (one per column; on the original target a
+    # scalar scatter was far cheaper per element than a (N,7)-row one). On
+    # the GPU they lower to atomics: the sums are reassociated in an order
+    # that changes from run to run
     cols = (g_alb[:, 0], g_alb[:, 1], g_alb[:, 2],
             g_nrm[:, 0], g_nrm[:, 1], g_nrm[:, 2], g_den)
     outs = [jnp.zeros((n_leaves,), jnp.float32).at[leaf_id].add(c)
@@ -231,47 +229,6 @@ def volumetric_l2_loss(albedo, normal, density, masks, child_base, leaf_base,
 
 
 # ---------------------------------------------------------------------------
-# Pallas-kernel hot path (ops/traverse_pallas.py): the megakernel role of the
-# reference's NVIDIASVO.compute dispatched per frame (RaytracingMaster.cs:66-68)
-# — forward traversal in a Pallas TPU kernel, same differentiable shading VJP.
-# Ray count must be a multiple of traverse_pallas.TILE_N (pad upstream).
-# ---------------------------------------------------------------------------
-
-@partial(jax.jit, static_argnames=("depth", "interpret"))
-def render_diff_pallas(albedo, normal, density, masks, child_base, leaf_base,
-                       o, d, depth, light_dir, light_intensity=1.3,
-                       light_ambient=0.08, interpret=False):
-    """render_diff with the traversal in the Pallas TPU kernel (bit-identical
-    hits — tested). Traversal is non-differentiable structure; the shading
-    segment-sum VJP composes unchanged."""
-    from raytracingtest_tpu.ops import traverse_pallas
-    n = o.shape[0]
-    if n % traverse_pallas.TILE_N:
-        raise ValueError(
-            f"ray count {n} not a multiple of {traverse_pallas.TILE_N} "
-            "(pad upstream; the Pallas kernel tiles rays in (8,128) blocks)")
-    res = traverse_pallas._trace_pallas(masks, child_base, leaf_base, o, d,
-                                        depth, interpret=interpret)
-    hit_leaf = jax.lax.stop_gradient(res.hit_leaf)
-    return shade_diff(hit_leaf, d, albedo, normal, density,
-                      light_dir, light_intensity, light_ambient)
-
-
-def l2_loss_pallas(albedo, normal, density, masks, child_base, leaf_base,
-                   o, d, depth, light_dir, target, interpret=False):
-    img = render_diff_pallas(albedo, normal, density, masks, child_base,
-                             leaf_base, o, d, depth, light_dir,
-                             interpret=interpret)
-    return jnp.mean((img - target) ** 2)
-
-
-loss_and_grads_pallas = jax.jit(
-    jax.value_and_grad(l2_loss_pallas, argnums=(0, 1, 2)),
-    static_argnames=("depth", "interpret"),
-)
-
-
-# ---------------------------------------------------------------------------
 # brick-accelerated hot path (ops/brick.py): same differentiable shading,
 # traversal via the gather-light brick traversal. Used by bench.py and the
 # production fit/render drivers for depth >= 4 SVOs.
@@ -317,10 +274,15 @@ def render_diff_tile(albedo, normal, density, tsvo, o, d, corners,
                      light_dir, light_intensity=1.3, light_ambient=0.08,
                      k_max=64, chunk_tiles=256, fb_tiles=128, fb_k=256,
                      fb2_tiles=0, fb2_split=2, skybox=None):
-    """Differentiable render via the tile traversal (hits bit-identical to
-    render_diff — tested). o/d: (T, P, 3) tile-major; returns ((T*P, 3)
-    radiance, residual-unresolved count). skybox: optional (H, W, 3)
-    equirect environment texture sampled on miss."""
+    """Differentiable render via the tile traversal. o/d: (T, P, 3)
+    tile-major; returns ((T*P, 3) radiance, residual-unresolved count).
+    skybox: optional (H, W, 3) equirect environment texture sampled on miss.
+
+    Hits equal render_diff's on the CPU tests; on the H100 at depth 10 /
+    1024² they equal the brick path's on every ray and differ from the
+    plain path's on 8 of 1,048,576 rays (voxel-corner ties; chip_smoke.py
+    phase 3). When the fallback walks chunk (budgets past ~65536 lanes,
+    _walk_tiles_scheduled), hit_t may differ by ~1 ULP."""
     from raytracingtest_tpu.ops import tile as tile_mod
     caps = tile_mod._default_caps(tsvo.top_depth, k_max)
     b = tsvo.bsvo

@@ -3,7 +3,7 @@
 The reference samples real HDR environment maps on ray miss
 (Assets/Shaders/RaytraceCompute.compute:117-126; assets
 Assets/3rdParty/Skybox/Cubemaps/daytime.hdr, sunset.hdr — Unity decodes
-them to a cubemap texture). This module is the TPU framework's loader for
+them to a cubemap texture). This module is the framework's loader for
 the same asset class: a Radiance RGBE file parsed to a float32 (H, W, 3)
 equirectangular array, sampled on miss by render.sky_texture.
 

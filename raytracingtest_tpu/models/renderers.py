@@ -212,15 +212,17 @@ class InverseRenderer:
             {"train": optax.adam(self.learning_rate),
              "freeze": optax.set_to_zero()}, labels)
         # the fit runs on the production traversal hierarchy: tile step
-        # (fastest; exact with surfaced residual) when the tree supports the
-        # pyramid, else brick, else the plain ESVO loop — all bit-identical
-        # hits -> identical loss/grads (tested)
+        # when the tree supports the pyramid, else brick, else the plain ESVO
+        # loop — identical hits -> identical loss/grads (tested). The tile
+        # step adds the sub-tile re-walk (fb2_tiles): grazing fit views at
+        # depth 10 leave cap-limited rays without it
         self._bsvo, self._tsvo = _accel_of(self)
         self._step_tile = None
         if self._tsvo is not None:
             from raytracingtest_tpu.parallel.render_sharded import (
                 make_train_step_tile)
-            self._step_tile = make_train_step_tile(self.mesh, self.optimizer)
+            self._step_tile = make_train_step_tile(self.mesh, self.optimizer,
+                                                   fb2_tiles=32)
         if self._bsvo is not None:
             self._step = make_train_step_brick(
                 self.mesh, self.svo.depth, self._bsvo.top_depth,
@@ -264,10 +266,12 @@ class InverseRenderer:
         tile-aligned resolution and the tree supports the pyramid, else the
         brick/plain flat-ray step. target_img: (H*W, 3) row-major pixels.
 
-        Returns (params, opt_state, loss, residual). residual > 0 means
-        some rays' loss terms used cap-limited (inexact) hits — it is 0 in
-        normal operation and training drivers must surface it (no silent
-        ray loss in training; the forward path's guarantee, kept here)."""
+        Returns (params, opt_state, loss, residual). A tile step that leaves
+        cap-limited (inexact) rays is discarded and the view is stepped on
+        the exact per-ray path instead, as trace_tile_exact re-traces such
+        rays, so every applied step uses exact hits and residual is 0 (no
+        silent ray loss in training; the forward path's guarantee, kept
+        here)."""
         import jax.numpy as jnp
         from raytracingtest_tpu.ops import tile as tile_mod
         from raytracingtest_tpu.parallel.mesh import ray_sharding
@@ -279,9 +283,11 @@ class InverseRenderer:
             tgt = tile_mod.tile_pixels(np.asarray(target_img), grid)
             sh = ray_sharding(self.mesh)
             put = lambda x: jax.device_put(jnp.asarray(x), sh)
-            return self._step_tile(params, opt_state, self._tsvo,
-                                   put(o_t), put(d_t), put(corners), light,
-                                   put(tgt.reshape(-1, 3)))
+            out = self._step_tile(params, opt_state, self._tsvo,
+                                  put(o_t), put(d_t), put(corners), light,
+                                  put(tgt.reshape(-1, 3)))
+            if int(out[3]) == 0:
+                return out
         o, d = cam.rays(np)
         o_s, d_s, t_s = self.shard_rays(o, d, target_img)
         params, opt_state, loss = self.step(params, opt_state, o_s, d_s,

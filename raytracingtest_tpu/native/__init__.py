@@ -1,4 +1,4 @@
-"""ctypes bindings to the native runtime library (csrc/libtpusvo.so).
+"""ctypes bindings to the native runtime library (csrc/libsvo.so).
 
 Native components (role parity with the reference's native pieces —
 FastNoiseSIMD host noise and the CUDA Trace.cu kernel, SURVEY.md §2.7/2.3):
@@ -9,37 +9,62 @@ FastNoiseSIMD host noise and the CUDA Trace.cu kernel, SURVEY.md §2.7/2.3):
     reference/traverse.py (fast golden oracle + CPU serving fallback)
   * rtt_morton_* — 64-bit Morton batch encode/decode
 
-The library is built on demand with `make -C csrc` (gcc only, no deps);
-everything degrades gracefully to the pure numpy implementations when the
-.so is absent.
+The library is a build product, never checked in: it is built from the
+csrc/ sources on first use, and again whenever a source is newer than it
+(gcc only, no deps); everything degrades gracefully to the pure numpy
+implementations when it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
-_SO = os.path.join(_CSRC, "libtpusvo.so")
+_SO = os.path.join(_CSRC, "libsvo.so")
 _lib = None
 _lock = threading.Lock()
 
 
+def stale() -> bool:
+    """True when the library is missing or older than any csrc/*.cpp."""
+    if not os.path.exists(_SO):
+        return True
+    built = os.path.getmtime(_SO)
+    return any(os.path.getmtime(src) > built
+               for src in glob.glob(os.path.join(_CSRC, "*.cpp")))
+
+
 def build(quiet: bool = True) -> bool:
-    """Compile the native library. Returns True on success."""
+    """Compile the native library. Returns True on success.
+
+    The compiler writes a uniquely named file in csrc/ that is then renamed
+    over the library in one step, so processes that build at the same time
+    (test workers importing this module together) never load a half-written
+    file."""
+    fd, tmp = tempfile.mkstemp(prefix="libsvo-", suffix=".tmp", dir=_CSRC)
+    os.close(fd)
+    name = os.path.basename(tmp)
     try:
+        # -B: the empty placeholder is newer than the sources, so force make
         subprocess.run(
-            ["make", "-C", _CSRC],
+            ["make", "-B", "-C", _CSRC, f"SO={name}", name],
             check=True,
             capture_output=quiet,
         )
+        os.replace(tmp, _SO)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load(auto_build: bool = True):
@@ -48,7 +73,7 @@ def load(auto_build: bool = True):
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_SO) and auto_build:
+        if auto_build and stale():
             if not build():
                 return None
         if not os.path.exists(_SO):

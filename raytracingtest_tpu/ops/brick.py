@@ -1,17 +1,17 @@
 """Brick-accelerated traversal: bottom octree levels as 512-bit occupancy bricks.
 
-TPU cost model (measured on-chip, scratch/micro3.py): the traversal's only
-expensive operation is the in-loop random row gather (~2.4ns/row for tables
-under ~128KB, ~10ns/row beyond), while elementwise VPU work is effectively
-free. The plain ESVO loop (ops/traverse.py) pays one gather per PUSH/ADVANCE/
-POP step against the full node table (517K nodes at depth 10). This module
-restructures the deepest BRICK_LEVELS=3 levels so that:
+Designed for the original target (README), where the traversal's only
+expensive operation was the in-loop random row gather (cheaper for small
+tables) while elementwise work was nearly free; on the H100 the trade is
+unmeasured (ROADMAP.md, Speed 2). The plain ESVO loop (ops/traverse.py) pays one gather per
+PUSH/ADVANCE/POP step against the full node table (517K nodes at depth 10).
+This module restructures the deepest BRICK_LEVELS=3 levels so that:
 
   * the *structure* table shrinks to the top levels only (38K nodes at
-    depth 10 — the small-gather class), and
+    depth 10), and
   * the bottom three levels collapse into one 512-bit brick per level-
     (depth-3) node: an 8x8x8 voxel occupancy bitmask fetched with ONE row
-    gather, then walked with a gather-free DDA (pure VPU selects).
+    gather, then walked with a gather-free DDA (pure elementwise selects).
 
 The traversal runs phased: a structure loop (one small gather per iteration)
 parks rays at brick entries; one batched brick fetch; a DDA loop (zero
@@ -27,7 +27,7 @@ parent-major — ops/octree.py layout invariant), so a hit's global leaf id is
 brick_leaf_base + prefix-popcount. This plays the role of the reference's
 leaf voxels within the NVIDIA ESVO format (Assets/Scripts/SVO/CompactSVO/
 NaiveCreator.cs child descriptors; Assets/Shaders/NVIDIASVO.compute traversal)
-re-blocked for a machine whose bottleneck is gathers, not threads.
+re-blocked so that most steps fetch no structure.
 """
 
 from __future__ import annotations
@@ -54,9 +54,9 @@ BRICK_LEVELS = 3  # bottom levels folded into 8^3 bit bricks
 # full-width gather whether or not a lane needs it).
 TOP_DRAIN = 8
 
-# Steps executed per while_loop iteration (cond evaluations carry a fixed
-# per-iteration cost on the TPU; unrolling amortizes it at the price of up
-# to UNROLL-1 wasted masked steps per ray at loop exit).
+# Steps executed per while_loop iteration (each cond evaluation carries a
+# fixed per-iteration cost; unrolling amortizes it at the price of up to
+# UNROLL-1 wasted masked steps per ray at loop exit).
 import os as _os
 
 
@@ -215,7 +215,8 @@ def _spread3(x):
 
 def _sel16(words, w):
     """Per-lane select of words[:, w] from (N,16) via a binary select tree
-    (TPUs have no per-lane gather; 15 wheres on shrinking arrays are free)."""
+    (written for the original target, which has no per-lane gather: 15
+    wheres on shrinking arrays)."""
     t = jnp.where(((w >> 3) & 1)[:, None] != 0, words[:, 8:], words[:, :8])
     t = jnp.where(((w >> 2) & 1)[:, None] != 0, t[:, 4:], t[:, :4])
     t = jnp.where(((w >> 1) & 1)[:, None] != 0, t[:, 2:], t[:, :2])
@@ -379,8 +380,9 @@ def _brick_round(st, nodes_packed, bricks, depth, top_depth, n_max_top,
     for l in range(1, BRICK_LEVELS + 1):
         half = f32(brick_exp2 * 2.0 ** (-l))
         # half*coef + (pos*coef - bias), the same expression shape as the
-        # plain path's descent: on TPU, XLA's FMA fusion rounds
-        # (pos+half)*coef - bias differently at exact voxel-corner ties
+        # plain path's descent: where XLA contracts multiply-adds into
+        # FMAs, (pos+half)*coef - bias rounds differently at exact
+        # voxel-corner ties
         t_center = half * st["t_coef"] + (bpos * st["t_coef"]
                                           - st["t_bias"])
         upper = t_center > t_min[:, None]
@@ -635,7 +637,7 @@ def _trace_brick_multi_core(top_masks, top_child, top_parent, bricks,
         t_min = st["t_min"]
         for l in range(1, BRICK_LEVELS + 1):
             half = f32(brick_exp2 * 2.0 ** (-l))
-            # same expression shape as the plain path's descent (TPU FMA
+            # same expression shape as the plain path's descent (FMA
             # rounding — see _brick_round)
             t_center = half * st["t_coef"] + (bpos * st["t_coef"]
                                               - st["t_bias"])

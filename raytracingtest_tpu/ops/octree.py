@@ -1,7 +1,7 @@
 """SVO data model + hierarchical builder (pointer-free, breadth-first, vectorized).
 
 Replaces the reference's recursive pointer-tree construction
-(Assets/Scripts/SVO/CompactSVO/NaiveCreator.cs:52-193) with a TPU-idiomatic
+(Assets/Scripts/SVO/CompactSVO/NaiveCreator.cs:52-193) with an array
 design: the octree is a struct-of-arrays over *levels*, built by a frontier
 sweep of vectorized per-level passes instead of 8^depth scalar recursion.
 

@@ -1,13 +1,12 @@
 """Tile-amortized traversal: frustum-shared structure walk + per-ray brick DDA.
 
-THE round-3 hot-path redesign, driven by the measured cost model
-(scratch/probe2.py, probe3.py, PROFILE.md): on this TPU the XLA random row
-gather runs at a flat ~7 ns/row regardless of width, table size, row width
-(<= ~64B) or dependency structure, while VPU elementwise work and loop
-iterations are comparatively free (~7 us/iter at 1M lanes). Per-ray
-hierarchical traversal (ops/traverse.py, ops/brick.py) pays one gather per
-ray per step — ~50-100 rows/ray — which is the entire frame cost. The only
-big multiplier left is AMORTIZING structure access across coherent rays:
+The production forward path. It was designed for the original target
+(README), where a random row gather cost far more than elementwise work
+and loop iterations: per-ray hierarchical traversal (ops/traverse.py,
+ops/brick.py) pays one gather per ray per step — ~50-100 rows/ray — so
+this path AMORTIZES structure access across coherent rays. Whether that trade still wins on
+the H100, which has per-thread loads and caches, is unmeasured (ROADMAP.md,
+Speed 2 and Design 3):
 
   * Rays are grouped into P-pixel camera tiles (default 16x16). Each tile's
     frustum (4 corner-ray planes) walks a dense occupancy-bit mip pyramid of
@@ -31,11 +30,11 @@ big multiplier left is AMORTIZING structure access across coherent rays:
     No silent ray loss by construction (VERDICT r02 item 6).
 
 Reference role: this replaces the per-thread megakernel loop of
-Assets/Shaders/NVIDIASVO.compute:57-156 + dispatch RaytracingMaster.cs:66-68.
-The per-thread GPU formulation is wrong for a machine without per-lane
-memory access; the tile formulation is the TPU-native shape of the same
-capability (hierarchical empty-space skipping + leaf DDA), with hits
-bit-identical to the scalar oracle (reference/traverse.py) — tested.
+Assets/Shaders/NVIDIASVO.compute:57-156 + dispatch RaytracingMaster.cs:66-68
+with a tile formulation of the same capability (hierarchical empty-space
+skipping + leaf DDA), with hits equal to the scalar oracle
+(reference/traverse.py) — tested on the CPU; on the H100 chip_smoke.py
+compares them.
 """
 
 from __future__ import annotations
@@ -68,7 +67,7 @@ TILE_WIN = int(_os.environ.get("RTT_TILE_WIN", "4"))
 TILE_LOADS = int(_os.environ.get("RTT_TILE_LOADS", "2"))
 TILE_SKIPS = int(_os.environ.get("RTT_TILE_SKIPS", "3"))
 # fallback-walk window: fb lists run to fb_k=256 candidates, so the walker
-# there is load-trip-bound — wide loads cut its trip count ~4x (r5 measured)
+# there is load-trip-bound — wide loads cut its trip count ~4x
 FB_WIN = int(_os.environ.get("RTT_TILE_FB_WIN", "8"))
 FB_LOADS = int(_os.environ.get("RTT_TILE_FB_LOADS", "8"))
 FB_SKIPS = int(_os.environ.get("RTT_TILE_FB_SKIPS", "6"))
@@ -80,9 +79,8 @@ def _walk_chunk(st, codes, ids, t_codes, bricks, depth, top_depth, k_max,
     unfin) with unfin the backstop-bail mask (always False for lockstep).
     win/loads/skips default to the module knobs; call sites with long
     candidate lists (the enlarged-K fallback re-walk) pass wider values —
-    a k-candidate tile needs ceil(k/loads) load trips, and at fb_k=256 the
-    loads=2 default made the fallback walk cost MORE device time than the
-    whole main walk (r5 profile trace)."""
+    a k-candidate tile needs ceil(k/loads) load trips, so at fb_k=256 the
+    loads=2 default would make the fallback walk take ~4x the trips."""
     if TILE_WALKER == "lockstep":
         hl, ht, it = _walk_chunk_lockstep(st, codes, ids, t_codes, bricks,
                                           depth, top_depth, k_max,
@@ -307,10 +305,8 @@ def _candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
         word = jnp.take(pyr, _pyr_layout(top_depth)[0][l] + (safe >> 2),
                         axis=0)                       # (T,C) uint32
         # ALL per-cell math runs on flattened (T, C*8) arrays with one
-        # scalar array per axis/plane: a trailing dim of 3/4/8 would waste
-        # most of each (8,128) vreg (measured: the einsum formulation with
-        # (T,C,8,4) intermediates cost ~12 ms/frame at 1024^2; this
-        # flattened form is the same flop count at full lane utilization)
+        # scalar array per axis/plane (on the original target a trailing
+        # dim of 3/4/8 wasted most of each vector register; same flop count)
         rep8 = lambda x: jnp.repeat(x, 8, axis=1)     # (T,C) -> (T,W)
         oct8 = jnp.tile(jnp.arange(8, dtype=i32), (1, c_prev))  # (1,W)
         child = rep8(safe * 8) + oct8                 # (T,W)
@@ -399,9 +395,9 @@ def _candidates(pyr, cellmap, corners, apex, top_depth, caps, k_max):
 # initializes the 8^3 DDA; subsequent iterations run DDA_UNROLL exact DDA
 # steps for every ray still walking. Rays terminate when the remaining
 # candidates' conservative t lower bound can no longer beat their hit.
-# Chunked over tiles so the loop-carried state stays VMEM-resident
-# (PROFILE.md: a while_loop whose carry exceeds VMEM streams it through HBM
-# every iteration).
+# Chunked over tiles to bound the loop-carried state (sized to stay in the
+# original target's on-chip memory; the right chunk on the H100 is
+# unmeasured, ROADMAP.md Design 3).
 # ---------------------------------------------------------------------------
 
 def _mirrored_brick_corner(code, om, top_depth):
@@ -492,10 +488,8 @@ def _walk_chunk_window(st, codes, ids, t_codes, bricks, depth, top_depth,
     )
     slot_iota = jnp.arange(win, dtype=i32)[None, :]          # (1,win)
     # candidate metadata packed to ONE row table so the in-loop load is a
-    # single take_along_axis + one bricks gather regardless of `loads`:
-    # gathers are fusion barriers on TPU, and the unbatched form paid 4
-    # gather kernels PER load PER trip — the per-kernel launch overhead
-    # made widening `loads` a net loss (r5 profile trace)
+    # single take_along_axis + one bricks gather regardless of `loads`
+    # (separate gathers per load per trip cost one kernel launch each)
     cand3 = jnp.stack(
         [ids, codes, jax.lax.bitcast_convert_type(t_codes, i32)],
         axis=-1).reshape(ids.shape[0], k_max * 3)
@@ -868,9 +862,7 @@ def _trace_tile(pyr, cellmap, bricks, o, d, corners, apex, depth, top_depth,
     g = T // chunk_tiles
 
     # phase 1: per-tile candidate lists (chunked to bound sort widths;
-    # a single unchunked pass measured bit-identical and 0.4 ms SLOWER at
-    # the bench config — scratch/r6_p1.py — so the per-chunk kernel chain
-    # is NOT launch-bound)
+    # the results equal a single unchunked pass)
     codes, ids, t_codes, drop_t = jax.tree_util.tree_map(
         lambda x: x.reshape((T,) + x.shape[2:]),
         jax.lax.map(
@@ -935,17 +927,15 @@ def _walk_tiles_scheduled(bricks, o, d, codes, ids, t_codes, drop_t, *,
     schedule applied to the FALLBACK walks. A single unchunked fb walk
     serializes every tile on the globally worst tile's trip count; at the
     depth-12 exactness budgets (2048 tiles x 4x4 sub-tiles, k=256) that
-    one while_loop was the whole frame (r6). Sorting by candidate count
+    one while_loop set the whole frame's trip count. Sorting by candidate count
     and chunking to ~lane_budget lanes lets light sub-tiles retire in few
     trips. Small budgets (the bench config's 96-tile fb) stay a single
     call.
 
-    Identity caveat: tiles are independent, and on TPU the chunked walk
-    measured bit-identical to the single call (depth-12 2048^2: same
-    1,544,663 hits, 2620 -> 1713 ms/frame). On CPU the different static
-    shapes let LLVM contract multiply-adds differently, so hit_t can
-    wobble by ~1 ULP vs the single-call program (hit ids, iters and the
-    unresolved mask stay exact) — see
+    Identity caveat: tiles are independent, but the different static
+    shapes let the compiler contract multiply-adds differently, so hit_t
+    can wobble by ~1 ULP vs the single-call program on the CPU (hit ids,
+    iters and the unresolved mask stay exact) — see
     tests/test_tile.py::test_walk_scheduled_chunked_parity."""
     T, P = o.shape[0], o.shape[1]
     rows = max(1, lane_budget // max(P, 1))
@@ -1081,8 +1071,8 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
     contain unresolved rays are RE-WALKED with enlarged caps (fb_k
     candidates) — one extra chunk walk, same program.
 
-    Horizon-grazing tiles at depth >= 12 can saturate even fb_k=256 (the
-    r4 saturation profile: scratch/r4_d12sat.py); when fb2_tiles > 0, the
+    Horizon-grazing tiles at depth >= 12 can saturate even fb_k=256; when
+    fb2_tiles > 0, the
     tiles still unresolved after the enlarged-K pass are SPLIT into
     fb2_split^2 sub-tiles (frustum volume ~split^2 smaller, so candidate
     lists shrink accordingly) and re-walked per sub-tile with exact

@@ -1,9 +1,11 @@
 """Device-mesh construction for ray sharding.
 
 The reference's only parallelism is GPU thread-per-pixel within one chip
-(SURVEY.md §2.8). The TPU-native distribution axis is the ray/pixel batch —
-this module builds the 1-D "rays" mesh used by pjit/shard_map; octree arrays
-are replicated (level-sharded deep octrees are the depth>=12 extension).
+(SURVEY.md §2.8). Here the distribution axis is the ray/pixel batch — this
+module builds the flat 1-D "rays" mesh used by shard_map (every card of a
+host reaches every other over NVLink, so the mesh follows the algorithm
+alone); octree arrays are replicated (level-sharded deep octrees are the
+depth>=12 extension).
 """
 
 from __future__ import annotations

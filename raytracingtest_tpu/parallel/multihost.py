@@ -1,12 +1,13 @@
 """Multi-host scaffolding: jax.distributed init + process-local ray shards.
 
-BASELINE config 5 runs on a multi-host v5p-32 slice; this module is the
-entry layer that makes every driver (bench.py, cli.py fit) one flag away
-from that topology while degrading to a no-op on a single host:
+BASELINE config 5 runs on several hosts; this module is the entry layer
+that makes every entry point (bench.py, cli.py fit) one flag away from that
+topology while degrading to a no-op on a single host:
 
-  * init_from_env() calls jax.distributed.initialize when the standard
-    coordinator variables are present (JAX_COORDINATOR_ADDRESS or the
-    TPU-pod metadata jax.distributed auto-detects) and is a no-op otherwise.
+  * init_from_env() calls jax.distributed.initialize when the coordinator
+    variables are present (JAX_COORDINATOR_ADDRESS, or RAYT_MULTIHOST=auto
+    for a cluster jax.distributed can auto-detect) and is a no-op
+    otherwise.
   * ProcessRays gives each process ONLY its slice of the global pixel grid
     (process-local ray generation — no host materializes the full image),
     plus the global<->local row bookkeeping for assembling outputs with
@@ -14,7 +15,8 @@ from that topology while degrading to a no-op on a single host:
 
 The reference has no distribution at all (SURVEY.md §2.8); its analog of a
 "transport" is ComputeBuffer.SetData (RaytracingMaster.cs:107-108). Here the
-transport is XLA collectives over ICI/DCN via the mesh in parallel/mesh.py.
+transport is XLA collectives (NCCL on GPUs) via the mesh in
+parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ def init_from_env(verbose: bool = True) -> dict:
     """Initialize jax.distributed from environment variables if present.
 
     Recognized: JAX_COORDINATOR_ADDRESS (host:port), JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID. On TPU pods jax.distributed.initialize() can also
-    auto-detect everything, which RAYT_MULTIHOST=auto requests explicitly.
+    JAX_PROCESS_ID. On clusters it recognizes (e.g. SLURM),
+    jax.distributed.initialize() can also auto-detect everything, which
+    RAYT_MULTIHOST=auto requests explicitly.
     Single-host (nothing set): no-op. Returns a status dict."""
     mode = os.environ.get("RAYT_MULTIHOST", "")
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS", "")

@@ -1,11 +1,11 @@
 """Multi-chip rendering + inverse-rendering training via shard_map.
 
-The TPU-native replacement for the reference's single-GPU dispatch
+The multi-device replacement for the reference's single-GPU dispatch
 (RaytracingMaster.cs:66-68): rays are sharded over the device mesh's "rays"
 axis (the analog of data/sequence parallelism for this workload, SURVEY.md
 §2.8), the packed octree and voxel parameters are replicated, and voxel-
-parameter gradients are reduced with an explicit psum over the mesh — the
-XLA-collective equivalent of a NCCL all-reduce, riding ICI.
+parameter gradients are reduced with an explicit psum over the mesh, which
+XLA hands to NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -165,7 +165,7 @@ def make_train_step_brick(mesh, depth, top_depth, optimizer):
 
 def render_tile_sharded(mesh, albedo, normal, density, tsvo, o, d, corners,
                         light_dir, k_max=96, chunk_tiles=256,
-                        fb_tiles=128, fb_k=256):
+                        fb_tiles=128, fb_k=256, fb2_tiles=0):
     """Forward render on the PRODUCTION tile path with tiles sharded over
     the mesh (the data/sequence-parallel axis of this workload at tile
     granularity — each device walks its own tiles' frustums; no cross-
@@ -185,7 +185,7 @@ def render_tile_sharded(mesh, albedo, normal, density, tsvo, o, d, corners,
         img, residual = diff_mod.render_diff_tile(
             albedo, normal, density, tsvo, o_s, d_s, corners_s, light_dir,
             k_max=k_max, chunk_tiles=chunk_tiles, fb_tiles=fb_tiles,
-            fb_k=fb_k)
+            fb_k=fb_k, fb2_tiles=fb2_tiles)
         return img, residual.reshape(1)
 
     return jax.jit(_render)(albedo, normal, density, tsvo, o, d, corners,
@@ -193,7 +193,8 @@ def render_tile_sharded(mesh, albedo, normal, density, tsvo, o, d, corners,
 
 
 def make_train_step_tile(mesh, optimizer, k_max=96, chunk_tiles=256,
-                         fb_tiles=128, fb_k=256, overlap_groups=1):
+                         fb_tiles=128, fb_k=256, fb2_tiles=0,
+                         overlap_groups=1):
     """Sharded train step on the tile hot path: tiles sharded over the
     mesh, voxel-parameter grads psum'ed. Hits are bit-identical to the
     plain/brick paths, so the whole optimization trajectory coincides
@@ -208,9 +209,9 @@ def make_train_step_tile(mesh, optimizer, k_max=96, chunk_tiles=256,
     overlap_groups > 1 chunks the backward over tile groups and launches
     each group's gradient psum as soon as that group's backward finishes:
     group i's all-reduce has no data dependency on group i+1's compute, so
-    the XLA scheduler can run the ICI collective under the remaining
-    backward work (config 5's overlapped gradient all-reduce; trace
-    evidence: scratch/r4_overlap.py + PROFILE.md). Group losses/grads sum
+    the XLA scheduler can run the collective under the remaining backward
+    work (config 5's overlapped gradient all-reduce; unmeasured on the
+    H100, ROADMAP.md Speed 9). Group losses/grads sum
     to exactly the ungrouped values (disjoint ray partition)."""
     from raytracingtest_tpu import diff as diff_mod
 
@@ -219,7 +220,8 @@ def make_train_step_tile(mesh, optimizer, k_max=96, chunk_tiles=256,
         img, residual = diff_mod.render_diff_tile(
             params["albedo"], params["normal"], params["density"], tsvo,
             o_s, d_s, corners_s, light_dir, k_max=k_max,
-            chunk_tiles=chunk_tiles, fb_tiles=fb_tiles, fb_k=fb_k)
+            chunk_tiles=chunk_tiles, fb_tiles=fb_tiles, fb_k=fb_k,
+            fb2_tiles=fb2_tiles)
         return jnp.sum((img - target_s) ** 2) / n_total, residual
 
     @partial(

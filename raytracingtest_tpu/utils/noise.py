@@ -106,9 +106,8 @@ def noise3(x, y, z, xp=np, seed=0):
         gi = (h % xp.uint32(12)).astype(xp.int32)
         # branch-free gradient decode (values identical to the _GRAD rows,
         # so results are bit-identical to a table lookup): a per-lane
-        # xp.take here is a random gather — the single most expensive
-        # primitive on the TPU (~7 ns/row, PROFILE.md) — and made
-        # device-side scene evaluation gather-bound
+        # xp.take here would be a random gather per sample, which made
+        # device-side scene evaluation gather-bound on the original target
         one = xp.float32(1.0)
         s1 = one - xp.float32(2.0) * (gi & 1).astype(xp.float32)
         s2 = one - xp.float32(2.0) * ((gi >> 1) & 1).astype(xp.float32)

@@ -8,7 +8,7 @@ substituted a home-grown gradient noise, so no scene in the framework was
 numerically comparable to the reference's (VERDICT r03 missing 3). This
 module closes that gap.
 
-TPU-first redesign: the reference walks a per-point linked list of lattice
+Array redesign: the reference walks a per-point linked list of lattice
 contributions selected by a region hash (Simplex.cs:299-323). Linked chains
 and data-dependent loops don't vectorize; here the 2048-entry hash table is
 flattened at construction into dense padded arrays (hash, MAX_CHAIN) of

@@ -1,4 +1,4 @@
-"""Classic (improved) Perlin noise, vectorized for TPU.
+"""Classic (improved) Perlin noise, vectorized (numpy / jax.numpy).
 
 Parity port of the reference's `Assets/Scripts/Utility/Noise/Perlin.cs`
 (Keijiro Takahashi's Unity port of Ken Perlin's reference implementation,

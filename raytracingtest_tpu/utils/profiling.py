@@ -3,8 +3,8 @@ a first-order roofline account for the traversal loop.
 
 The reference's only instrumentation is Stopwatch logging of clipmap updates
 (Clipmap.cs:46-47,128-137) and an uncapped frame counter
-(RaytracingMaster.cs:21-22); SURVEY.md §5 mandates real traces + rays/s +
-roofline accounting for the TPU build.
+(RaytracingMaster.cs:21-22); SURVEY.md §5 asks for real traces + rays/s +
+roofline accounting.
 """
 
 from __future__ import annotations
@@ -41,6 +41,21 @@ class RaysPerSecond:
                 f"{self.seconds:.2f}s = {self.rays_per_s/1e6:.2f} Mrays/s")
 
 
+def fenced_median_ms(fn, runs: int) -> float:
+    """Median wall time in ms of `runs` calls of fn(), each fenced with
+    jax.block_until_ready (JAX returns before the device finishes), after
+    one untimed call that compiles."""
+    import jax
+
+    jax.block_until_ready(fn())
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """jax.profiler trace context (view with tensorboard/xprof)."""
@@ -53,18 +68,37 @@ def device_trace(logdir: str):
         jax.profiler.stop_trace()
 
 
+# Published peak device-memory bandwidth, keyed by jax device_kind.
+# NVIDIA H100 SXM5 80GB data sheet: 3.35 TB/s HBM3 (at the 700 W limit).
+PEAK_HBM_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def peak_hbm_bytes_per_s(device_kind: str) -> float:
+    """Peak HBM bandwidth of `device_kind`; a device that is not in the
+    table is an error, never a default."""
+    try:
+        return PEAK_HBM_BYTES_PER_S[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates for device kind {device_kind!r}; add it to "
+            "utils/profiling.PEAK_HBM_BYTES_PER_S with its source") from None
+
+
 def traversal_roofline(n_rays: int, depth: int, mean_iters: float,
-                       hbm_gbps: float = 819.0):
-    """First-order cost model of the traversal loop per frame.
+                       device_kind: str):
+    """First-order cost model of the traversal loop per frame on
+    `device_kind`.
 
     Memory per iteration: one packed (8 B) node fetch per active ray plus
-    ~32 B of state traffic per ray when the loop spills; compute is ~60 VPU
-    ops/ray/iter — strongly memory-bound, so the bound is modeled from
-    bytes over HBM bandwidth. Returns a dict with the ideal frame time and
-    implied rays/s ceiling."""
+    ~32 B of state traffic per ray when the loop spills; compute is a few
+    dozen integer/float ops per ray per iteration, so the bound is modeled
+    from bytes over peak HBM bandwidth. Returns a dict with the ideal frame
+    time and implied rays/s ceiling."""
     bytes_per_iter = 8 + 32
     total_bytes = n_rays * mean_iters * bytes_per_iter
-    t_ideal = total_bytes / (hbm_gbps * 1e9)
+    t_ideal = total_bytes / peak_hbm_bytes_per_s(device_kind)
     return {
         "bytes": total_bytes,
         "ideal_s": t_ideal,
@@ -82,12 +116,11 @@ def iter_stats(iters) -> dict:
     }
 
 
-def device_op_breakdown(fn, *args, logdir: str = "/tmp/rtt_op_trace",
-                        calls: int = 3, top: int = 30) -> list:
+def device_op_breakdown(fn, *args, logdir: str, calls: int = 3,
+                        top: int = 30) -> list:
     """Run `fn(*args)` under a jax.profiler trace and aggregate DEVICE-side
-    op durations from the emitted Chrome trace — the measurement method
-    that grounded the r5 cost model (PROFILE.md: per-fusion launch
-    overhead, while-loop trip costs). Returns [(op_name, total_ms, count)]
+    op durations from the emitted Chrome trace (per-fusion launch overhead,
+    while-loop trip costs). Returns [(op_name, total_ms, count)]
     sorted by total time, one entry per distinct HLO op/fusion name.
 
     fn must force execution itself (e.g. return a value the caller floats,

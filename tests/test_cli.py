@@ -79,7 +79,7 @@ def test_rays_per_second_counter():
 
 
 def test_roofline_and_iter_stats():
-    r = traversal_roofline(1 << 20, 10, 60.0)
+    r = traversal_roofline(1 << 20, 10, 60.0, "NVIDIA H100 80GB HBM3")
     assert r["rays_per_s_ceiling"] > 1e8  # the hardware bound is far above us
     s = iter_stats(np.array([10, 20, 30, 100]))
     assert s["max"] == 100 and s["p50"] <= s["p99"]
@@ -122,7 +122,7 @@ def test_cli_probe_scripted(tmp_path, capsys):
     assert img.shape[:2] == (64, 64)
 
 
-def test_device_op_breakdown():
+def test_device_op_breakdown(tmp_path):
     """The profiler-trace aggregation returns per-op device totals (on the
     CPU backend device rows may be absent — the call must still succeed
     and return a list)."""
@@ -133,7 +133,7 @@ def test_device_op_breakdown():
         return float(jnp.sum(jnp.sort(x * 2.0)))
 
     rows = device_op_breakdown(fn, jnp.arange(1024, dtype=jnp.float32),
-                               logdir="/tmp/rtt_op_trace_test", calls=2)
+                               logdir=str(tmp_path), calls=2)
     assert isinstance(rows, list)
     for name, ms, count in rows:
         assert ms >= 0 and count >= 1

@@ -8,13 +8,13 @@ import pytest
 from raytracingtest_tpu.io import hdr
 
 
-def test_roundtrip_flat():
+def test_roundtrip_flat(tmp_path):
     rng = np.random.default_rng(0)
     # dynamic range spanning ~12 stops including true HDR values
     img = (rng.random((33, 47, 3), dtype=np.float32) ** 2) * 300.0
     img[0, 0] = 0.0                      # exact zero pixel
     img[5, 5] = (1e-4, 50.0, 0.3)        # high contrast within one pixel
-    path = "/tmp/rtt_test_roundtrip.hdr"
+    path = str(tmp_path / "rtt_test_roundtrip.hdr")
     hdr.save_hdr(path, img)
     out = hdr.load_hdr(path)
     assert out.shape == img.shape
@@ -25,7 +25,7 @@ def test_roundtrip_flat():
     assert np.all(out[0, 0] == 0.0)
 
 
-def test_roundtrip_marker_adjacent_values():
+def test_roundtrip_marker_adjacent_values(tmp_path):
     # dim pixels near the RLE-marker byte patterns: the encoder's
     # brightest-channel-in-[128,255] invariant keeps actual markers
     # unreachable, so these must round-trip exactly like any other value
@@ -33,7 +33,7 @@ def test_roundtrip_marker_adjacent_values():
     img = np.zeros((3, w, 3), np.float32)
     img[1, :] = (1.5 / 256, 1.5 / 256, 1.5 / 256)       # encodes (1,1,1,E)
     img[2, 0] = (2.5 / 256 * 2.0 ** (w % 256 - 128 + 8),) * 3
-    path = "/tmp/rtt_test_markers.hdr"
+    path = str(tmp_path / "rtt_test_markers.hdr")
     hdr.save_hdr(path, img)
     out = hdr.load_hdr(path)
     assert out.shape == img.shape
@@ -41,7 +41,7 @@ def test_roundtrip_marker_adjacent_values():
     assert np.all(np.abs(out - img) <= 0.02 * scale + 1e-9)
 
 
-def test_new_rle_decode():
+def test_new_rle_decode(tmp_path):
     # hand-build a new-style RLE file: runs + literals per component
     w, h = 16, 2
     row = np.zeros((w, 4), np.uint8)
@@ -58,7 +58,7 @@ def test_new_rle_decode():
         payload += bytes([128 + w, 128])              # E run
     data = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
             + f"-Y {h} +X {w}\n".encode() + payload)
-    path = "/tmp/rtt_test_newrle.hdr"
+    path = str(tmp_path / "rtt_test_newrle.hdr")
     with open(path, "wb") as f:
         f.write(data)
     out = hdr.load_hdr(path)
@@ -66,7 +66,7 @@ def test_new_rle_decode():
     np.testing.assert_allclose(out, exp, rtol=0, atol=0)
 
 
-def test_old_rle_decode():
+def test_old_rle_decode(tmp_path):
     # flat scanline containing an old-style repeat marker
     w, h = 6, 1
     px = bytes([40, 50, 60, 130])
@@ -74,7 +74,7 @@ def test_old_rle_decode():
     tail = bytes([70, 80, 90, 130])
     data = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
             + f"-Y {h} +X {w}\n".encode() + px + rep + tail)
-    path = "/tmp/rtt_test_oldrle.hdr"
+    path = str(tmp_path / "rtt_test_oldrle.hdr")
     with open(path, "wb") as f:
         f.write(data)
     out = hdr.load_hdr(path)
@@ -83,10 +83,10 @@ def test_old_rle_decode():
     assert not np.array_equal(out[0, 0], out[0, 5])
 
 
-def test_flip_orientation():
+def test_flip_orientation(tmp_path):
     img = np.zeros((4, 4, 3), np.float32)
     img[0, :] = 1.0
-    path = "/tmp/rtt_test_flip.hdr"
+    path = str(tmp_path / "rtt_test_flip.hdr")
     hdr.save_hdr(path, img)
     with open(path, "rb") as f:
         data = f.read()
@@ -96,15 +96,15 @@ def test_flip_orientation():
     assert np.all(out[3] > 0.9) and np.all(out[0] == 0.0)
 
 
-def test_rejects_non_hdr():
-    path = "/tmp/rtt_test_bad.hdr"
+def test_rejects_non_hdr(tmp_path):
+    path = str(tmp_path / "rtt_test_bad.hdr")
     with open(path, "wb") as f:
         f.write(b"PNG nonsense")
     with pytest.raises(ValueError):
         hdr.load_hdr(path)
 
 
-def test_render_with_hdr_skybox():
+def test_render_with_hdr_skybox(tmp_path):
     """A frame rendered with a real environment map: sun-disc HDR values
     reach the image through sky_texture on miss rays."""
     import jax.numpy as jnp
@@ -114,7 +114,7 @@ def test_render_with_hdr_skybox():
 
     tex = hdr.make_sky_hdr(height=64, width=128, sun_dir=(0.0, 0.6, 0.8),
                            sun_radiance=25.0, sun_cos=0.98)
-    path = "/tmp/rtt_test_sky.hdr"
+    path = str(tmp_path / "rtt_test_sky.hdr")
     hdr.save_hdr(path, tex)
     tex2 = hdr.load_hdr(path)
 
@@ -130,11 +130,11 @@ def test_render_with_hdr_skybox():
     assert img.min() >= 0.0
 
 
-def test_rejects_xyze_and_corrupt_rle():
+def test_rejects_xyze_and_corrupt_rle(tmp_path):
     # XYZE shares the wire format but would decode to wrong colors
     data = (b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n-Y 1 +X 2\n"
             + bytes([10, 10, 10, 128]) * 2)
-    path = "/tmp/rtt_test_xyze.hdr"
+    path = str(tmp_path / "rtt_test_xyze.hdr")
     with open(path, "wb") as f:
         f.write(data)
     with pytest.raises(ValueError, match="XYZE"):
@@ -144,7 +144,7 @@ def test_rejects_xyze_and_corrupt_rle():
     payload = bytes([2, 2, 0, w]) + bytes([0])  # empty literal packet
     data = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
             + f"-Y 1 +X {w}\n".encode() + payload)
-    path = "/tmp/rtt_test_corrupt.hdr"
+    path = str(tmp_path / "rtt_test_corrupt.hdr")
     with open(path, "wb") as f:
         f.write(data)
     with pytest.raises(ValueError, match="empty packet"):

@@ -11,8 +11,12 @@ from raytracingtest_tpu.scenes import get_scene
 from raytracingtest_tpu.utils import noise
 from tests.test_traverse import random_rays
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library not built")
+@pytest.fixture(autouse=True, scope="module")
+def _native_library():
+    """Build (or find) the library when the tests run, not at import: every
+    test worker must collect the same tests."""
+    if not native.available():
+        pytest.skip("native library could not be built (needs make and g++)")
 
 
 def test_noise_bit_identical():

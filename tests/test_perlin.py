@@ -2,7 +2,7 @@
 
 Covers the reference's dead-code `Perlin.cs` (SURVEY.md §2.7) the same way
 OpenSimplex is covered: a scalar float32 transcription of the reference
-semantics is the oracle; the vectorized TPU implementation must match it
+semantics is the oracle; the vectorized implementation must match it
 bit-for-bit on both numpy and jit paths."""
 
 import numpy as np

@@ -318,3 +318,45 @@ def test_tile_train_step_overlap_groups_matches_ungrouped():
     for k in params:
         np.testing.assert_allclose(np.asarray(p1[k]), np.asarray(p2[k]),
                                    atol=1e-6)
+
+
+def test_step_view_falls_back_to_exact_step_on_residual():
+    """A tile step that leaves cap-limited rays is not applied: step_view
+    takes the view's step on the exact per-ray path instead and reports
+    residual 0, so training never uses inexact hits."""
+    import raytracingtest_tpu as rt
+    from raytracingtest_tpu.config import CameraConfig
+    from raytracingtest_tpu.models import InverseRenderer
+    from raytracingtest_tpu.ops import tile as tile_mod
+    from raytracingtest_tpu.ops.camera import Camera
+    from raytracingtest_tpu.parallel.render_sharded import (
+        make_train_step_tile)
+
+    svo = rt.build_svo(rt.get_scene("terrain"), 6).svo.device()
+    cfg = CameraConfig(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
+                       fov_y_deg=50.0, width=64, height=64)
+    cam = Camera(position=cfg.position, look_at=cfg.look_at, fov_y_deg=50.0,
+                 width=64, height=64)
+    o, d = cam.rays(np)
+    o_t, d_t, corners, _grid = tile_mod.tile_rays(cam, np)
+    light = jnp.asarray([-0.5, -1.0, -0.3], jnp.float32)
+    target = np.zeros((64 * 64, 3), np.float32)
+    model = InverseRenderer(svo)
+    params, st = model.init_params(seed=0)
+
+    # starved budgets: no fallback re-walk can restore the dropped rays
+    starved = make_train_step_tile(model.mesh, model.optimizer, k_max=4,
+                                   chunk_tiles=2, fb_tiles=1, fb_k=4)
+    out = starved(params, st, model._tsvo, jnp.asarray(o_t),
+                  jnp.asarray(d_t), jnp.asarray(corners), light,
+                  jnp.asarray(target))
+    assert int(out[3]) > 0
+    model._step_tile = starved
+
+    p1, _, l1, r1 = model.step_view(params, st, cfg, light, target)
+    o_s, d_s, t_s = model.shard_rays(o, d, target)
+    p2, _, l2 = model.step(params, st, o_s, d_s, light, t_s)
+    assert int(r1) == 0
+    assert float(l1) == float(l2)
+    for k in params:
+        np.testing.assert_array_equal(np.asarray(p1[k]), np.asarray(p2[k]))

@@ -204,8 +204,7 @@ def test_walk_scheduled_chunked_parity():
     (thousands of fb sub-tiles) ride this path. Hit ids, iters and the
     unresolved mask are exactly equal; hit_t is allclose-only on CPU,
     where the chunked program's different static shapes let LLVM contract
-    multiply-adds differently (~1 ULP — on TPU the two measured
-    bit-identical, PROFILE.md r6)."""
+    multiply-adds differently (~1 ULP)."""
     svo, ts, o, d, corners = _setup("terrain", 6, res_px=128)
     caps = tile._default_caps(ts.top_depth, 32)
     codes, ids, t_codes, drop_t = tile._candidates(

@@ -228,3 +228,23 @@ def test_iteration_counts_bounded(sphere5):
     o, d = random_rays(200, seed=23)
     res = traverse.trace_numpy(svo, o, d)
     assert res.iters.max() < traverse.max_iters_for_depth(svo.depth)
+
+
+def test_stackless_trip_bound_covers_grazing_rays():
+    """The XLA path climbs one level per POP iteration, so a ray grazing the
+    depth-9 terrain needs more trips than the stack-based bound
+    (max_iters_for_depth); it must still reach the oracle's hit instead of
+    being cut off as a miss."""
+    from raytracingtest_tpu.ops.camera import Camera
+
+    svo = build_svo(get_scene("terrain"), 9).svo
+    cam = Camera(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
+                 fov_y_deg=50.0, width=256, height=256)
+    o, d = cam.rays(np)
+    sel = np.asarray([25262])               # the frame's longest walk
+    res = traverse.trace_jax(svo, o[sel], d[sel])
+    ref = traverse.trace_numpy(svo, o[sel], d[sel])
+    assert int(res.iters[0]) > traverse.max_iters_for_depth(9)
+    assert int(res.iters[0]) < traverse.max_iters_stackless(9)
+    assert ref.hit_leaf[0] >= 0
+    assert int(res.hit_leaf[0]) == ref.hit_leaf[0]
