@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -55,11 +56,38 @@ LOSS_RTOL = 1e-5
 # Gradients: the segment cumsum reassociates f32 sums, and GPU atomics add
 # the rank-1 backward's rows in an order that changes from run to run.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+ADAM_B1 = 0.9                          # optax.adam's default
 
 # the bench.py tile budgets (k_max, fb_tiles, fb_k, fb2_tiles)
 TILE_BUDGETS = dict(k_max=96, fb_tiles=96, fb_k=160, fb2_tiles=16)
 LIGHT = (-0.5, -1.0, -0.3)
 CAM_POS, CAM_LOOK = (0.5, 0.85, -0.6), (0.5, 0.4, 0.5)
+
+
+def _adam_mu(opt_state):
+    """Adam's first moment (a params-shaped pytree) inside an optax state."""
+    has_mu = lambda x: hasattr(x, "mu")
+    for leaf in jax.tree_util.tree_leaves(opt_state, is_leaf=has_mu):
+        if has_mu(leaf):
+            return leaf.mu
+    raise ValueError("no Adam state found")
+
+
+# a matrix product in compiled HLO: a dot or convolution instruction, or a
+# call into cuBLAS / cuDNN (where TF32 rounding could enter)
+MATRIX_PRODUCT = re.compile(
+    r"\s(dot|convolution)\(|custom_call_target=\"[^\"]*(cublas|cudnn)",
+    re.IGNORECASE)
+
+
+def check_no_matrix_products(label: str, lowered) -> None:
+    """Compile `lowered` for the device and scan the compiled HLO."""
+    found = sorted({m.group(0).strip()
+                    for m in MATRIX_PRODUCT.finditer(
+                        lowered.compile().as_text())})
+    log(f"  compiled HLO of {label}: matrix products {found or 'none'} "
+        "(required: none)")
+    check(not found, f"{label} compiles to matrix products")
 
 
 def log(msg: str) -> None:
@@ -261,6 +289,11 @@ def phase_parity(svo, res: int, budgets=None) -> None:
         "tile": lambda: diff.render_diff_tile(
             *params, tsvo, o_t, d_t, corners, light, **budgets),
     }
+    check_no_matrix_products("render_diff", diff.render_diff.lower(
+        *params, dsvo.masks, dsvo.child_base, dsvo.leaf_base, o, d, depth,
+        light, parent_ptr=dsvo.parent_ptr))
+    check_no_matrix_products("render_diff_tile", diff.render_diff_tile.lower(
+        *params, tsvo, o_t, d_t, corners, light, **budgets))
     iters = {"plain": plain.iters, "brick": brick.iters, "tile": tile.iters}
     for name, fn in runs.items():
         it = np.asarray(iters[name])
@@ -291,6 +324,13 @@ def phase_fwd_bwd(svo, res: int, budgets=None) -> None:
     for name, gp, gt in zip(("d_albedo", "d_normal", "d_density"),
                             grads_p, grads_t):
         compare_arrays(f"{name} tile vs plain", gp, gt, GRAD_RTOL, GRAD_ATOL)
+    check_no_matrix_products("loss_and_grads_tile",
+                             diff.loss_and_grads_tile.lower(
+                                 *params, tsvo, o_t, d_t, corners, light,
+                                 target, **budgets))
+    check_no_matrix_products("loss_and_grads", diff.loss_and_grads.lower(
+        *params, dsvo.masks, dsvo.child_base, dsvo.leaf_base, o, d, svo.depth,
+        light, target, parent_ptr=dsvo.parent_ptr))
     log(f"  tile fwd+bwd median of 5 {fenced_median_ms(tile_fn, 5):.2f} ms; "
         f"plain {fenced_median_ms(plain_fn, 5):.2f} ms (informational)")
     log_memory("4 fwd+bwd")
@@ -305,11 +345,13 @@ def phase_fit(depth: int, views: int, steps: int, res: int, cache_dir: str,
                     "--depth", str(depth), "--views", str(views), "--steps",
                     str(steps), "--view-resolution", str(res), "--out-dir",
                     out_dir])
-    losses = out["losses"]
+    losses, ms = out["losses"], out["step_ms"]
     log(f"[5 fit] depth {depth}, {views} views at {res}x{res}, {steps} "
         f"steps in {time.perf_counter() - t0:.1f} s: loss "
         f"{losses[0]:.4e} -> {losses[-1]:.4e}, residual {out['residual']} "
         f"(required: 0), mean |albedo error| {out['albedo_error']:.4f}")
+    log(f"  step ms (host clock, informational): first {ms[0]:.1f}, median "
+        f"of the rest {float(np.median(ms[1:] or ms)):.2f}")
     check(bool(np.isfinite(losses).all()), "fit loss not finite")
     check(losses[-1] < losses[0], "fit loss did not fall")
     check(out["residual"] == 0, "fit trained on cap-limited hits")
@@ -399,67 +441,58 @@ def phase_four(depth: int, fit_res: int, render_res: int, trace_res: int,
     params = (jnp.asarray(svo.leaf_albedo), jnp.asarray(svo.leaf_normal),
               jnp.asarray(svo.leaf_density))
 
-    # -- sharded train step, n devices vs one, on the first view `cli fit`
-    # poses. The loss through the user path (InverseRenderer.step_view,
-    # Adam) agrees to rtol 1e-5 (psum order). The gradient the step applies
-    # is compared directly, through the same sharded tile step with plain
-    # SGD (lr 1), at rtol 1e-4 / atol 1e-6: Adam divides each entry by its
-    # own gradient scale (eps 1e-8), so entries whose gradient is ~0 turn
-    # f32 reassociation noise into steps of up to lr, and the Adam-updated
-    # albedo is held only to that bound (2 * lr * steps).
-    import optax
-    from raytracingtest_tpu.parallel.mesh import ray_sharding
-    from raytracingtest_tpu.parallel.render_sharded import (
-        make_train_step_tile)
+    # -- sharded train step, n devices vs one, through the user path
+    # (InverseRenderer.step_view, Adam) on the first view `cli fit` poses.
+    # Loss: rtol 1e-5 (psum order). Gradient of the first step, read from
+    # Adam's first moment (mu = (1 - b1) * g after one step from zero):
+    # rtol 1e-4 / atol 1e-6. Adam's first update is -lr * g / (|g| + eps),
+    # about -lr * sign(g), so an entry whose gradient is f32 reassociation
+    # noise (|g| <= atol, either sign) moves by up to lr on one side and not
+    # the other; the updated albedo is held to rtol 1e-4 / atol 1e-6 on every
+    # entry whose gradient the check above resolves (|g| > atol on both
+    # sides, same sign), and the rest are printed.
     y0 = 0.6 + 0.25 * np.random.default_rng(0).random()
     cfg = CameraConfig(position=(1.6, y0, 0.5), look_at=(0.5, 0.5, 0.5),
                        fov_y_deg=45.0, width=fit_res, height=fit_res)
-    cam = Camera(position=cfg.position, look_at=cfg.look_at, fov_y_deg=45.0,
-                 width=fit_res, height=fit_res)
-    o, d = cam.rays(np)
+    o, d = Camera(position=cfg.position, look_at=cfg.look_at, fov_y_deg=45.0,
+                  width=fit_res, height=fit_res).rays(np)
     target = np.asarray(diff.render_diff(
         *params, dsvo.masks, dsvo.child_base, dsvo.leaf_base,
         jnp.asarray(o), jnp.asarray(d), svo.depth, light,
         parent_ptr=dsvo.parent_ptr))
-    o_t, d_t, corners, grid = tile_mod.tile_rays(cam, np)
-    tgt = tile_mod.tile_pixels(target, grid).reshape(-1, 3)
     results = {}
     for n in (1, n_devices):
         model = InverseRenderer(dsvo, n_devices=n)
         p, s = model.init_params(seed=0)
-        p0 = p
-        losses = []
+        losses, albedo = [], []
         t0 = time.perf_counter()
-        for _ in range(fit_steps):
+        for i in range(fit_steps):
             p, s, loss, resid = model.step_view(p, s, cfg, light, target)
-            check(int(resid) == 0, f"n={n} train step residual")
+            check(int(resid) == 0, f"n={n} train step {i} residual")
             losses.append(float(loss))
-        sgd = optax.sgd(1.0)
-        put = lambda x: jax.device_put(jnp.asarray(x),
-                                       ray_sharding(model.mesh))
-        p1, _, _, resid = make_train_step_tile(model.mesh, sgd,
-                                               fb2_tiles=32)(
-            p0, sgd.init(p0), model._tsvo, put(o_t), put(d_t),
-            put(corners), light, put(tgt))
-        check(int(resid) == 0, f"n={n} SGD step residual")
-        grad = np.asarray(p0["albedo"]) - np.asarray(p1["albedo"])
-        results[n] = (losses, np.asarray(p["albedo"]), grad)
+            albedo.append(np.asarray(p["albedo"]))
+            if i == 0:
+                grad = np.asarray(_adam_mu(s)["albedo"]) / (1 - ADAM_B1)
+        results[n] = (losses, albedo, grad)
         log(f"[four fit] n_devices={n}: losses {losses} "
-            f"({time.perf_counter() - t0:.1f} s, {fit_steps} Adam steps "
-            "and one SGD step)")
+            f"({time.perf_counter() - t0:.1f} s, {fit_steps} steps)")
+    (l1, a1, g1), (ln, an, gn) = results[1], results[n_devices]
     for i in range(fit_steps):
-        compare_arrays(f"step {i} loss {n_devices} vs 1 device",
-                       results[1][0][i], results[n_devices][0][i],
+        compare_arrays(f"step {i} loss {n_devices} vs 1 device", l1[i], ln[i],
                        LOSS_RTOL, 0.0)
-    compare_arrays(f"d_albedo {n_devices} vs 1 device", results[1][2],
-                   results[n_devices][2], GRAD_RTOL, GRAD_ATOL)
-    moved = np.abs(results[1][1] - results[n_devices][1])
-    bound = 2 * model.learning_rate * fit_steps
-    log(f"  Adam-updated albedo {n_devices} vs 1 device: max |diff| "
-        f"{float(moved.max()):.3e} (bound {bound:g}); "
-        f"{int((moved > GRAD_ATOL).sum())} of {moved.size} entries differ "
-        f"by > {GRAD_ATOL:g}")
-    check(float(moved.max()) <= bound, "updated albedo beyond Adam's bound")
+    compare_arrays(f"step 0 d_albedo {n_devices} vs 1 device", g1, gn,
+                   GRAD_RTOL, GRAD_ATOL)
+    resolved = ((g1 * gn > 0) & (np.abs(g1) > GRAD_ATOL)
+                & (np.abs(gn) > GRAD_ATOL))
+    rest = (g1 != 0) & ~resolved
+    moved = np.abs(a1[0] - an[0])[rest]
+    log(f"  step 0 albedo: {int(resolved.sum())} of {int((g1 != 0).sum())} "
+        f"entries with a gradient have |g| > {GRAD_ATOL:g} on both sides; "
+        f"the other {int(rest.sum())} moved apart by up to "
+        f"{float(moved.max()) if moved.size else 0.0:.3e} (informational)")
+    compare_arrays(f"step 0 updated albedo {n_devices} vs 1 device, resolved "
+                   "entries", a1[0][resolved], an[0][resolved], GRAD_RTOL,
+                   GRAD_ATOL)
 
     # -- tile render sharded over tiles vs one device, both exact (residual
     # 0 under the bench budgets; the fallback budgets apply per device, so
@@ -484,7 +517,13 @@ def phase_four(depth: int, fit_res: int, render_res: int, trace_res: int,
           "tile render left cap-limited rays")
     check(n_px == 0, "sharded tile render differs from one device")
 
-    # -- level-sharded traces vs the direct trace
+    # -- level-sharded traces vs the direct trace. They re-express each ray
+    # in its octant's frame ((o - origin) / size) and step past empty
+    # octants by eps 1e-5, so at depth 10 a ray that grazes a voxel corner
+    # or an octant face can take another leaf than the direct trace (the
+    # CPU shows it too: 13 of 262,144 rays at 512^2). They are held to the
+    # mismatch-rate limit of the other paths, and the oracle's side of each
+    # mismatch is printed.
     ls = level_sharded.split_svo(svo, split_level=2, n_devices=n_devices)
     o, d = _camera(trace_res).rays(np)
     o, d = jnp.asarray(o), jnp.asarray(d)
@@ -503,6 +542,19 @@ def phase_four(depth: int, fit_res: int, render_res: int, trace_res: int,
         return np.where(hit, table[np.where(hit, owner, 0),
                                    np.where(hit, leaf, 0)], -1)
 
+    def compare_with_direct(label, leaf, t_hit, owner):
+        got = global_leaf(leaf, owner)
+        compare_hits(f"{label} vs direct", direct.hit_leaf, direct.hit_t,
+                     got, t_hit)
+        ref_leaf = np.asarray(direct.hit_leaf)
+        bad = np.flatnonzero(ref_leaf != got)
+        if bad.size:
+            ref = traverse.trace_numpy(svo, np.asarray(o)[bad],
+                                       np.asarray(d)[bad]).hit_leaf
+            log(f"  of the {bad.size} rays that differ, the host oracle "
+                f"agrees with direct on {int((ref == ref_leaf[bad]).sum())}, "
+                f"{label} on {int((ref == got[bad]).sum())}")
+
     trace = jax.jit(level_sharded.make_sharded_trace(mesh, ls))
     leaf, t_s, owner, trunc = trace(
         ls.trunk_masks, ls.trunk_child, ls.trunk_leaf, ls.octant_owner,
@@ -512,9 +564,7 @@ def phase_four(depth: int, fit_res: int, render_res: int, trace_res: int,
     log(f"[four level-sharded] sharded trace {trace_res}x{trace_res}: "
         f"truncated {n_tr} (required: 0)")
     check(n_tr == 0, "sharded trace truncated rays")
-    n_bad = compare_hits("sharded trace vs direct", direct.hit_leaf,
-                         direct.hit_t, global_leaf(leaf, owner), t_s)
-    check(n_bad == 0, "sharded trace hits differ")
+    compare_with_direct("sharded trace", leaf, t_s, owner)
 
     ex = jax.jit(level_sharded.make_exchange_trace(mesh, ls))
     leaf, t_x, owner, traced, trunc = ex(
@@ -525,9 +575,7 @@ def phase_four(depth: int, fit_res: int, render_res: int, trace_res: int,
     log(f"[four level-sharded] exchange trace: truncated {n_tr} (required: "
         f"0), traced per device {np.asarray(traced).tolist()}")
     check(n_tr == 0, "exchange trace truncated rays")
-    n_bad = compare_hits("exchange trace vs direct", direct.hit_leaf,
-                         direct.hit_t, global_leaf(leaf, owner), t_x)
-    check(n_bad == 0, "exchange trace hits differ")
+    compare_with_direct("exchange trace", leaf, t_x, owner)
     log_memory("four")
 
 

@@ -192,22 +192,24 @@ def cmd_fit(args):
                                           randomize=("albedo",))
     t0 = time.time()
     resid_total = 0
-    losses = []
+    losses, step_ms = [], []
     for step in range(args.steps):
         ccfg, target = views[step % len(views)]
-        # the fastest applicable production path (tile > brick > plain);
-        # residual counts rays whose loss terms used cap-limited hits
+        # the production path (tile > brick > plain); residual counts rays
+        # whose loss terms used cap-limited hits
+        t_step = time.perf_counter()
         params, opt_state, loss, resid = model.step_view(
             params, opt_state, ccfg, light, target)
         resid_total += int(resid)
         losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
         if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {float(loss):.3e}  "
                   f"residual {int(resid)}  ({time.time()-t0:.1f}s)",
                   file=sys.stderr)
     if resid_total:
         print(f"WARNING: {resid_total} ray-steps trained on cap-limited "
-              "hits (raise fb_tiles/fb_k)", file=sys.stderr)
+              "hits", file=sys.stderr)
     err = float(jnp.abs(params["albedo"]
                         - jnp.asarray(svo.leaf_albedo)).mean())
     print(f"final mean |albedo error| = {err:.4f}", file=sys.stderr)
@@ -216,7 +218,8 @@ def cmd_fit(args):
                           params, opt_state, step=args.steps,
                           meta={"scene": args.scene, "depth": args.depth})
     print(f"saved {args.out_dir}/fit_state.npz", file=sys.stderr)
-    return {"losses": losses, "residual": resid_total, "albedo_error": err}
+    return {"losses": losses, "residual": resid_total, "albedo_error": err,
+            "step_ms": step_ms}
 
 
 def cmd_fly(args):

@@ -269,13 +269,17 @@ loss_and_grads_brick = jax.jit(
 # ---------------------------------------------------------------------------
 
 @partial(jax.jit, static_argnames=("k_max", "chunk_tiles", "fb_tiles",
-                                   "fb_k", "fb2_tiles", "fb2_split"))
+                                   "fb_k", "fb2_tiles", "fb2_split",
+                                   "retrace_chunk"))
 def render_diff_tile(albedo, normal, density, tsvo, o, d, corners,
                      light_dir, light_intensity=1.3, light_ambient=0.08,
                      k_max=64, chunk_tiles=256, fb_tiles=128, fb_k=256,
-                     fb2_tiles=0, fb2_split=2, skybox=None):
+                     fb2_tiles=0, fb2_split=2, retrace_chunk=0, skybox=None):
     """Differentiable render via the tile traversal. o/d: (T, P, 3)
     tile-major; returns ((T*P, 3) radiance, residual-unresolved count).
+    retrace_chunk > 0 re-traces every ray the tile walks left cap-limited
+    on the per-ray brick path in the same program, that many rays per pass
+    (tile.retrace_residual), so the residual is 0.
     skybox: optional (H, W, 3) equirect environment texture sampled on miss.
 
     Hits equal render_diff's on the CPU tests; on the H100 at depth 10 /
@@ -290,7 +294,11 @@ def render_diff_tile(albedo, normal, density, tsvo, o, d, corners,
         tsvo.pyr, tsvo.cellmap, b.bricks, o, d, corners, o[0, 0],
         tsvo.depth, tsvo.top_depth,
         caps, k_max, chunk_tiles, fb_tiles, fb_k, fb2_tiles, fb2_split)
-    hit_leaf = jax.lax.stop_gradient(res.hit_leaf)
+    hit_leaf = res.hit_leaf
+    if retrace_chunk:
+        hit_leaf, _t, residual = tile_mod.retrace_residual(
+            b, o, d, hit_leaf, res.hit_t, residual, retrace_chunk)
+    hit_leaf = jax.lax.stop_gradient(hit_leaf)
     img = shade_diff(hit_leaf, d.reshape(-1, 3), albedo, normal, density,
                      light_dir, light_intensity, light_ambient,
                      skybox=skybox)
@@ -303,7 +311,7 @@ def l2_loss_tile(albedo, normal, density, tsvo, o, d, corners, light_dir,
     """Tile-path training loss. Returns (loss, residual count): residual is
     the number of rays whose hits are still cap-limited after the enlarged-K
     re-walk (loss/grads over them use inexact hits) — callers must surface
-    it instead of silently training on wrong pixels (VERDICT r03 weak 3)."""
+    it instead of silently training on wrong pixels."""
     img, residual = render_diff_tile(
         albedo, normal, density, tsvo, o, d, corners, light_dir,
         k_max=k_max, chunk_tiles=chunk_tiles, fb_tiles=fb_tiles, fb_k=fb_k,

@@ -212,17 +212,15 @@ class InverseRenderer:
             {"train": optax.adam(self.learning_rate),
              "freeze": optax.set_to_zero()}, labels)
         # the fit runs on the production traversal hierarchy: tile step
+        # (exact: cap-limited rays are re-traced per ray inside the step)
         # when the tree supports the pyramid, else brick, else the plain ESVO
-        # loop — identical hits -> identical loss/grads (tested). The tile
-        # step adds the sub-tile re-walk (fb2_tiles): grazing fit views at
-        # depth 10 leave cap-limited rays without it
+        # loop — identical hits -> identical loss/grads (tested)
         self._bsvo, self._tsvo = _accel_of(self)
         self._step_tile = None
         if self._tsvo is not None:
             from raytracingtest_tpu.parallel.render_sharded import (
                 make_train_step_tile)
-            self._step_tile = make_train_step_tile(self.mesh, self.optimizer,
-                                                   fb2_tiles=32)
+            self._step_tile = make_train_step_tile(self.mesh, self.optimizer)
         if self._bsvo is not None:
             self._step = make_train_step_brick(
                 self.mesh, self.svo.depth, self._bsvo.top_depth,
@@ -261,17 +259,16 @@ class InverseRenderer:
                           light, target)
 
     def step_view(self, params, opt_state, camera_cfg, light, target_img):
-        """One train step against a posed target image, on the FASTEST
-        applicable path: tile-amortized when the camera is pinhole with
-        tile-aligned resolution and the tree supports the pyramid, else the
-        brick/plain flat-ray step. target_img: (H*W, 3) row-major pixels.
+        """One train step against a posed target image: tile-amortized when
+        the camera is pinhole with tile-aligned resolution and the tree
+        supports the pyramid, else the brick/plain flat-ray step.
+        target_img: (H*W, 3) row-major pixels.
 
-        Returns (params, opt_state, loss, residual). A tile step that leaves
-        cap-limited (inexact) rays is discarded and the view is stepped on
-        the exact per-ray path instead, as trace_tile_exact re-traces such
-        rays, so every applied step uses exact hits and residual is 0 (no
-        silent ray loss in training; the forward path's guarantee, kept
-        here)."""
+        Returns (params, opt_state, loss, residual). residual > 0 would mean
+        some rays' loss terms used cap-limited (inexact) hits; the tile
+        step re-traces them exactly, so it is 0, and training drivers
+        surface it (no silent ray loss in training; the forward path's
+        guarantee, kept here)."""
         import jax.numpy as jnp
         from raytracingtest_tpu.ops import tile as tile_mod
         from raytracingtest_tpu.parallel.mesh import ray_sharding
@@ -283,11 +280,9 @@ class InverseRenderer:
             tgt = tile_mod.tile_pixels(np.asarray(target_img), grid)
             sh = ray_sharding(self.mesh)
             put = lambda x: jax.device_put(jnp.asarray(x), sh)
-            out = self._step_tile(params, opt_state, self._tsvo,
-                                  put(o_t), put(d_t), put(corners), light,
-                                  put(tgt.reshape(-1, 3)))
-            if int(out[3]) == 0:
-                return out
+            return self._step_tile(params, opt_state, self._tsvo,
+                                   put(o_t), put(d_t), put(corners), light,
+                                   put(tgt.reshape(-1, 3)))
         o, d = cam.rays(np)
         o_s, d_s, t_s = self.shard_rays(o, d, target_img)
         params, opt_state, loss = self.step(params, opt_state, o_s, d_s,

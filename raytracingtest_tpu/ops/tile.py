@@ -1165,6 +1165,34 @@ def _trace_tile_fb(pyr, cellmap, bricks, o, d, corners, apex, depth,
         un.reshape(T * P)
 
 
+def retrace_residual(bsvo, o, d, hit_leaf, hit_t, unresolved, chunk):
+    """In-jit exact re-trace of every ray the tile walks left cap-limited,
+    on the per-ray brick path (hits identical to the tile walk's resolved
+    rays), `chunk` (static) rays per pass of a while loop that runs until
+    none is left. o/d: tile-major (T, P, 3). Returns (hit_leaf, hit_t,
+    unresolved); the returned mask is all False."""
+    from raytracingtest_tpu.ops import brick as brick_mod
+    N = hit_leaf.shape[0]
+    chunk = min(chunk, N)
+    o_f, d_f = o.reshape(-1, 3), d.reshape(-1, 3)
+
+    def one_pass(carry):
+        leaf, t, un = carry
+        sel = jnp.flatnonzero(un, size=chunk, fill_value=0)
+        # padding slots re-trace ray 0 and are dropped on the write-back
+        dst = jnp.where(jnp.arange(chunk) < jnp.sum(un), sel, N)
+        sub = brick_mod._trace_brick_jax(
+            bsvo.top_masks, bsvo.top_child, bsvo.top_parent, bsvo.bricks,
+            jnp.take(o_f, sel, axis=0), jnp.take(d_f, sel, axis=0),
+            bsvo.depth, bsvo.top_depth)
+        return (leaf.at[dst].set(sub.hit_leaf, mode="drop"),
+                t.at[dst].set(sub.hit_t, mode="drop"),
+                un.at[dst].set(False, mode="drop"))
+
+    return jax.lax.while_loop(lambda c: jnp.any(c[2]), one_pass,
+                              (hit_leaf, hit_t, unresolved))
+
+
 def trace_tile_fb(tsvo: TileSVO, o, d, corners, k_max=64, caps=None,
                   chunk_tiles=256, fb_tiles=128, fb_k=256, fb2_tiles=0,
                   fb2_split=2):

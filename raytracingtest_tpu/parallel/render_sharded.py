@@ -194,17 +194,19 @@ def render_tile_sharded(mesh, albedo, normal, density, tsvo, o, d, corners,
 
 def make_train_step_tile(mesh, optimizer, k_max=96, chunk_tiles=256,
                          fb_tiles=128, fb_k=256, fb2_tiles=0,
-                         overlap_groups=1):
+                         retrace_chunk=4096, overlap_groups=1):
     """Sharded train step on the tile hot path: tiles sharded over the
-    mesh, voxel-parameter grads psum'ed. Hits are bit-identical to the
-    plain/brick paths, so the whole optimization trajectory coincides
+    mesh, voxel-parameter grads psum'ed. Hits equal the brick path's, so
+    the optimization trajectory coincides with the brick/plain steps
     (tested). Rays must be tile-major (tile.tile_rays).
 
-    The step returns (params, opt_state, loss, residual): residual is the
-    psum'ed count of rays whose hits are still cap-limited after the
-    enlarged-K re-walk (their loss/grad contributions use inexact hits).
-    It is exactly 0 in normal operation; training drivers must check it
-    (VERDICT r03 weak 3 — no silent ray loss in training).
+    Rays the tile walks leave cap-limited (grazing depth-10 views leave
+    hundreds to thousands after the enlarged-K re-walk) are re-traced
+    exactly on the per-ray brick path inside the step, `retrace_chunk` rays
+    per pass (tile.retrace_residual). The step returns (params, opt_state,
+    loss, residual): residual is the psum'ed count of rays whose loss/grad
+    contributions still use inexact hits, 0 unless retrace_chunk is 0.
+    Training drivers must check it (no silent ray loss in training).
 
     overlap_groups > 1 chunks the backward over tile groups and launches
     each group's gradient psum as soon as that group's backward finishes:
@@ -221,7 +223,7 @@ def make_train_step_tile(mesh, optimizer, k_max=96, chunk_tiles=256,
             params["albedo"], params["normal"], params["density"], tsvo,
             o_s, d_s, corners_s, light_dir, k_max=k_max,
             chunk_tiles=chunk_tiles, fb_tiles=fb_tiles, fb_k=fb_k,
-            fb2_tiles=fb2_tiles)
+            fb2_tiles=fb2_tiles, retrace_chunk=retrace_chunk)
         return jnp.sum((img - target_s) ** 2) / n_total, residual
 
     @partial(

@@ -122,9 +122,9 @@ def test_compare_arrays_tolerance():
         chip_smoke.compare_arrays("g", ref, [1.0, np.nan, 0.0], 1e-4, 1e-6)
 
 
-def test_main_path_has_no_matrix_products(terrain5):
-    """The render and loss entry points contain no dot or convolution, so
-    the GPU's TF32 matrix rounding cannot reach them."""
+def test_main_path_has_no_matrix_products(terrain5, capsys):
+    """The render and loss entry points compile to no dot, convolution or
+    BLAS call, so the GPU's TF32 matrix rounding cannot reach them."""
     import jax
     from raytracingtest_tpu import diff
 
@@ -147,3 +147,16 @@ def test_main_path_has_no_matrix_products(terrain5):
     for lo in lowered:
         text = lo.as_text()
         assert "dot_general" not in text and "convolution" not in text
+        chip_smoke.check_no_matrix_products("entry point", lo)
+    assert "matrix products none" in capsys.readouterr().out
+
+
+def test_matrix_product_scan_finds_a_dot(capsys):
+    import jax
+    import jax.numpy as jnp
+    lo = jax.jit(lambda a, b: jnp.dot(a, b) + 1.0).lower(
+        jnp.ones((8, 8)), jnp.ones((8, 8)))
+    with pytest.raises(AssertionError):
+        chip_smoke.check_no_matrix_products("a dot", lo)
+    assert chip_smoke.MATRIX_PRODUCT.search(
+        'custom-call(), custom_call_target="__cublas$gemm"')

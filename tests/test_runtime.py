@@ -55,7 +55,8 @@ def test_peak_table_known_kind():
     assert r["rays_per_s_ceiling"] > 1e8
 
 
-@pytest.mark.parametrize("kind", ["cpu", "TPU v5 lite", "NVIDIA H100 PCIe"])
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 PCIe"])
 def test_peak_table_unknown_kind_raises(kind):
     with pytest.raises(KeyError, match="no peak rates"):
         traversal_roofline(1 << 20, 10, 60.0, kind)

@@ -320,43 +320,63 @@ def test_tile_train_step_overlap_groups_matches_ungrouped():
                                    atol=1e-6)
 
 
-def test_step_view_falls_back_to_exact_step_on_residual():
-    """A tile step that leaves cap-limited rays is not applied: step_view
-    takes the view's step on the exact per-ray path instead and reports
-    residual 0, so training never uses inexact hits."""
+@pytest.fixture(scope="module")
+def starved_tile_setup():
+    """Terrain view whose tile walks, on starved budgets, leave cap-limited
+    rays no re-walk restores; the brick-path step is the exact reference."""
     import raytracingtest_tpu as rt
-    from raytracingtest_tpu.config import CameraConfig
-    from raytracingtest_tpu.models import InverseRenderer
+    from raytracingtest_tpu.ops import brick as brick_mod
     from raytracingtest_tpu.ops import tile as tile_mod
-    from raytracingtest_tpu.ops.camera import Camera
+    from raytracingtest_tpu.parallel.render_sharded import (
+        make_train_step_brick)
+
+    svo = rt.build_svo(rt.get_scene("terrain"), 6).svo
+    bsvo = brick_mod.make_brick_svo(svo).device()
+    tsvo = tile_mod.make_tile_svo(svo).device()
+    cam = Camera(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
+                 fov_y_deg=50.0, width=64, height=64)
+    o, d, corners, _grid = tile_mod.tile_rays(cam, np, tile_px=16)
+    target = jnp.zeros((o.shape[0] * o.shape[1], 3), jnp.float32)
+    params = {"albedo": jnp.asarray(svo.leaf_albedo),
+              "normal": jnp.asarray(svo.leaf_normal),
+              "density": jnp.asarray(svo.leaf_density)}
+    mesh = make_mesh()
+    opt = optax.adam(1e-2)
+    st = opt.init(params)
+    ref = make_train_step_brick(mesh, svo.depth, bsvo.top_depth, opt)(
+        params, st, bsvo.top_masks, bsvo.top_child, bsvo.top_parent,
+        bsvo.bricks, jnp.asarray(o.reshape(-1, 3)),
+        jnp.asarray(d.reshape(-1, 3)), LIGHT, target)
+    args = (params, st, tsvo, jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(corners), LIGHT, target)
+    return mesh, opt, args, ref
+
+
+def _starved_step(mesh, opt, retrace_chunk):
     from raytracingtest_tpu.parallel.render_sharded import (
         make_train_step_tile)
+    return make_train_step_tile(mesh, opt, k_max=4, chunk_tiles=2,
+                                fb_tiles=1, fb_k=4,
+                                retrace_chunk=retrace_chunk)
 
-    svo = rt.build_svo(rt.get_scene("terrain"), 6).svo.device()
-    cfg = CameraConfig(position=(0.5, 0.85, -0.6), look_at=(0.5, 0.4, 0.5),
-                       fov_y_deg=50.0, width=64, height=64)
-    cam = Camera(position=cfg.position, look_at=cfg.look_at, fov_y_deg=50.0,
-                 width=64, height=64)
-    o, d = cam.rays(np)
-    o_t, d_t, corners, _grid = tile_mod.tile_rays(cam, np)
-    light = jnp.asarray([-0.5, -1.0, -0.3], jnp.float32)
-    target = np.zeros((64 * 64, 3), np.float32)
-    model = InverseRenderer(svo)
-    params, st = model.init_params(seed=0)
 
-    # starved budgets: no fallback re-walk can restore the dropped rays
-    starved = make_train_step_tile(model.mesh, model.optimizer, k_max=4,
-                                   chunk_tiles=2, fb_tiles=1, fb_k=4)
-    out = starved(params, st, model._tsvo, jnp.asarray(o_t),
-                  jnp.asarray(d_t), jnp.asarray(corners), light,
-                  jnp.asarray(target))
-    assert int(out[3]) > 0
-    model._step_tile = starved
-
-    p1, _, l1, r1 = model.step_view(params, st, cfg, light, target)
-    o_s, d_s, t_s = model.shard_rays(o, d, target)
-    p2, _, l2 = model.step(params, st, o_s, d_s, light, t_s)
-    assert int(r1) == 0
-    assert float(l1) == float(l2)
-    for k in params:
-        np.testing.assert_array_equal(np.asarray(p1[k]), np.asarray(p2[k]))
+@pytest.mark.parametrize("retrace_chunk", [0, 8, 4096])
+def test_tile_train_step_retraces_residual_exactly(starved_tile_setup,
+                                                   retrace_chunk):
+    """The tile train step re-traces every ray its tile walks leave
+    cap-limited on the per-ray brick path, `retrace_chunk` rays per pass,
+    and then equals the brick-path step with residual 0, whether one pass
+    or many; with the re-trace off the residual is the walks' own count."""
+    mesh, opt, args, (p_ref, _, l_ref) = starved_tile_setup
+    r0 = int(_starved_step(mesh, opt, 0)(*args)[3])
+    assert r0 > 8 * mesh.devices.size  # the budgets do starve the walks
+    p, _, loss, resid = _starved_step(mesh, opt, retrace_chunk)(*args)
+    resid = int(resid)
+    if retrace_chunk == 0:
+        assert resid == r0
+    else:
+        assert resid == 0
+        assert abs(float(loss) - float(l_ref)) < 1e-6
+        for k in p:
+            np.testing.assert_allclose(np.asarray(p[k]), np.asarray(p_ref[k]),
+                                       atol=1e-6)

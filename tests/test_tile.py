@@ -7,6 +7,7 @@ loss). trace_tile_exact must equal the golden path exactly after fallback.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -172,6 +173,32 @@ def test_subtile_rewalk_exact(split):
     hit = ok & (np.asarray(r0.hit_leaf) >= 0)
     np.testing.assert_array_equal(np.asarray(r0.hit_t)[hit],
                                   np.asarray(r2.hit_t)[hit])
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_retrace_residual_in_jit(passes):
+    """retrace_residual re-traces every unresolved ray on the brick path, in
+    one pass or several, matching the golden hits; resolved rays are left
+    as they were."""
+    svo, ts, o, d, corners = _setup("terrain", 6)
+    caps = (1, 2, 2, 2)
+    r0 = traverse.trace_jax(svo, jnp.asarray(o.reshape(-1, 3)),
+                            jnp.asarray(d.reshape(-1, 3)))
+    r1, un1 = tile.trace_tile_fb(ts, o, d, corners, k_max=2, caps=caps,
+                                 fb_tiles=1, fb_k=4)
+    n_un = int(jnp.sum(un1))
+    assert n_un > 2
+    leaf, t, un2 = jax.jit(tile.retrace_residual, static_argnums=6)(
+        ts.bsvo, jnp.asarray(o), jnp.asarray(d), r1.hit_leaf, r1.hit_t, un1,
+        -(-n_un // passes))
+    assert not np.asarray(un2).any()
+    kept = ~np.asarray(un1)
+    np.testing.assert_array_equal(np.asarray(r1.hit_leaf)[kept],
+                                  np.asarray(leaf)[kept])
+    np.testing.assert_array_equal(np.asarray(r0.hit_leaf), np.asarray(leaf))
+    hit = np.asarray(r0.hit_leaf) >= 0
+    np.testing.assert_array_equal(np.asarray(r0.hit_t)[hit],
+                                  np.asarray(t)[hit])
 
 
 def test_subtile_split_roundtrip():
